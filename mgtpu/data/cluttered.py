@@ -25,7 +25,8 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
-from PIL import Image
+
+from mgtpu.data.transforms import pil_image
 
 
 # ---- sprite transforms (utils/transform.lua) ----
@@ -35,12 +36,14 @@ def rescale_sprite(sprite: np.ndarray, scale: Tuple[float, float], rng) -> np.nd
     lo, hi = min(scale), max(scale)
     s = int(math.ceil(rng.uniform(lo, hi) * sprite.shape[0]))
     s = max(s, 1)
+    Image = pil_image()
     im = Image.fromarray(sprite.astype(np.float32), mode="F").resize((s, s), Image.BILINEAR)
     return np.asarray(im)
 
 
 def rotate_sprite(sprite: np.ndarray, angle_deg: float, rng) -> np.ndarray:
     theta = rng.uniform(-angle_deg, angle_deg)
+    Image = pil_image()
     im = Image.fromarray(sprite.astype(np.float32), mode="F").rotate(
         theta, resample=Image.BILINEAR
     )
@@ -57,6 +60,7 @@ def affine_sprite(sprite: np.ndarray, angle_deg: float, rng) -> np.ndarray:
     a_xy = np.array([[a[1, 1], a[1, 0]], [a[0, 1], a[0, 0]]])
     off = np.array([cx, cy]) - a_xy @ np.array([cx, cy])
     coeffs = (a_xy[0, 0], a_xy[0, 1], off[0], a_xy[1, 0], a_xy[1, 1], off[1])
+    Image = pil_image()
     im = Image.fromarray(sprite.astype(np.float32), mode="F").transform(
         (w, h), Image.AFFINE, coeffs, resample=Image.BILINEAR
     )

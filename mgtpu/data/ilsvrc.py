@@ -37,8 +37,15 @@ PCA_EIGVEC = np.array(
 
 
 def load_image(path: str) -> np.ndarray:
-    """Robust decode -> HWC float32 in [0,1] (`donkey.lua:37-57`)."""
-    from PIL import Image
+    """Robust decode -> HWC float32 in [0,1] (`donkey.lua:37-57`).
+    JPEG decoding needs Pillow; `-data synthetic` never calls this."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"decoding {path} needs Pillow, which is not installed "
+            "(-data synthetic runs without it)"
+        ) from e
 
     try:
         im = Image.open(path).convert("RGB")

@@ -39,9 +39,15 @@ _WORKER_OPT = None
 
 def _init_worker(opt_state: dict):
     """Process-pool initializer: rebuild the loaders in this worker,
-    exactly like each reference donkey dofile'ing donkey.lua."""
+    exactly like each reference donkey dofile'ing donkey.lua. A worker
+    only makes host arrays, and must never open the accelerator: a JAX
+    process reserves most of a GPU's memory when it first touches it,
+    which would starve the training process."""
     global _WORKER_LOADERS, _WORKER_OPT
+    import os
     import types
+
+    os.environ["JAX_PLATFORMS"] = "cpu"
 
     _WORKER_OPT = types.SimpleNamespace(**opt_state)
     _WORKER_LOADERS = None  # built lazily on first job

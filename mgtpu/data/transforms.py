@@ -1,8 +1,8 @@
 """Host-side image transforms — the rebuild of `utils/transforms.lua`
 (fb.resnet.torch lineage) as numpy/PIL per-sample functions.
 
-Images are HWC float32 numpy arrays (the TPU-native layout; the
-reference used CHW torch tensors). Every random transform takes an
+Images are HWC float32 numpy arrays (the layout the NHWC models
+consume; the reference used CHW torch tensors). Every random transform takes an
 explicit ``numpy.random.Generator`` instead of torch's global RNG, so
 worker determinism is by construction (the reference seeds each donkey
 with manualSeed+idx, `data.lua:26-27`).
@@ -17,23 +17,28 @@ import math
 from typing import Callable, Sequence
 
 import numpy as np
-from PIL import Image
+
+from mgtpu import native as _native
 
 Transform = Callable[[np.ndarray, np.random.Generator], np.ndarray]
 
-_PIL_INTERP = {
-    "bilinear": Image.BILINEAR,
-    "bicubic": Image.BICUBIC,
-    "nearest": Image.NEAREST,
-}
+# native C++ data plane (mgtpu/native/mgdata.cpp); Pillow is the fallback
+# when no C++ toolchain could build it
+_HAVE_NATIVE = _native.available()
 
 
-try:  # native C++ data plane (mgtpu/native/mgdata.cpp); PIL is the fallback
-    from mgtpu import native as _native
-
-    _HAVE_NATIVE = _native.available()
-except Exception:  # pragma: no cover - missing toolchain
-    _native, _HAVE_NATIVE = None, False
+def pil_image():
+    """Pillow's Image module, imported only on the fallback path: the
+    main path needs numpy and the native library, not Pillow."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "this transform needs Pillow, which is not installed (the "
+            "native data library, mgtpu/native/mgdata.cpp, covers resize "
+            "and affine warps when it builds)"
+        ) from e
+    return Image
 
 
 def _resize(img: np.ndarray, w: int, h: int, interpolation: str = "bicubic") -> np.ndarray:
@@ -43,7 +48,9 @@ def _resize(img: np.ndarray, w: int, h: int, interpolation: str = "bicubic") -> 
         return img
     if _HAVE_NATIVE:
         return _native.resize(img.astype(np.float32, copy=False), h, w, interpolation)
-    interp = _PIL_INTERP[interpolation]
+    Image = pil_image()
+    interp = {"bilinear": Image.BILINEAR, "bicubic": Image.BICUBIC,
+              "nearest": Image.NEAREST}[interpolation]
     chans = [
         np.asarray(
             Image.fromarray(img[:, :, c].astype(np.float32), mode="F").resize(
@@ -214,8 +221,8 @@ def horizontal_flip(prob: float) -> Transform:
     return f
 
 
-def _warp_affine(img: np.ndarray, mat: np.ndarray, interpolation=Image.BILINEAR) -> np.ndarray:
-    """Apply a 2x2 linear map about the image center (torch
+def _warp_affine(img: np.ndarray, mat: np.ndarray) -> np.ndarray:
+    """Apply a 2x2 linear map about the image center, bilinear (torch
     image.affinetransform semantics: output(x) = input(A @ x))."""
     h, w = img.shape[:2]
     cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
@@ -226,12 +233,13 @@ def _warp_affine(img: np.ndarray, mat: np.ndarray, interpolation=Image.BILINEAR)
     # offset so the center maps to itself
     off = np.array([cx, cy]) - a_xy @ np.array([cx, cy])
     coeffs = (a_xy[0, 0], a_xy[0, 1], off[0], a_xy[1, 0], a_xy[1, 1], off[1])
-    if _HAVE_NATIVE and interpolation == Image.BILINEAR:
+    if _HAVE_NATIVE:
         return _native.warp_affine(img.astype(np.float32, copy=False), coeffs)
+    Image = pil_image()
     chans = [
         np.asarray(
             Image.fromarray(img[:, :, c].astype(np.float32), mode="F").transform(
-                (w, h), Image.AFFINE, coeffs, resample=interpolation
+                (w, h), Image.AFFINE, coeffs, resample=Image.BILINEAR
             )
         )
         for c in range(img.shape[2])

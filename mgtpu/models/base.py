@@ -73,7 +73,7 @@ def bce_loss(probs, targets, eps: float = 1e-12):
     """BCECriterion: mean binary cross-entropy over ALL elements
     (torch sizeAverage semantics) on sigmoid outputs.
 
-    Two numerical hazards, both hit on the real chip by
+    Two numerical hazards, both hit on an accelerator by
     scripts/mnist-cluttered/prnmg.mnist.sh at init (residual-head
     logits reach +-17, saturating the f32 sigmoid), each needing its
     own guard:
@@ -84,7 +84,7 @@ def bce_loss(probs, targets, eps: float = 1e-12):
        rounds to exactly 1.0, the upper clamp no-ops, and a saturated
        sigmoid yields log(0) = -inf loss.
     2. each log argument must be guarded with maximum(., eps), NOT a
-       clip of p: XLA:TPU's FUSED logistic+log codegen can push
+       clip of p: a backend's FUSED logistic+log codegen can push
        1 - sigmoid(z) negative under jit (eager per-op codegen cannot —
        minimal repro: jit(bce o sigmoid) at z=17 is NaN, eager finite;
        the standalone jitted sigmoid never exceeds 1, only the fused

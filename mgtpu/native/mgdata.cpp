@@ -8,7 +8,7 @@
 // ABI consumed via ctypes (mgtpu/native/__init__.py). Python/PIL
 // remains the behavioural fallback; tests pin the two paths together.
 //
-// All images are HWC float32, C-contiguous (the TPU-native layout the
+// All images are HWC float32, C-contiguous (the NHWC layout the
 // rest of mgtpu uses). Every function is thread-safe and touches only
 // locals / its own heap scratch (mg_resize allocates axis-weight
 // tables and a tmp plane per call), so donkey workers can call in

@@ -1,4 +1,4 @@
-"""Minimal functional layer library (NHWC, TPU-first).
+"""Minimal functional layer library (NHWC).
 
 Every layer is a small Python object with
 
@@ -12,9 +12,9 @@ return ``{}`` for stats.
 Semantics mirror the Torch7 modules used by the reference
 (`/root/reference/models/cifar/nmg.lua:18-29` ConvBNReLU,
 `nn.SpatialBatchNormalization`, `optim.sgd` init conventions) but the
-implementation is idiomatic JAX: NHWC layout, HWIO conv weights so XLA
-tiles convolutions directly onto the MXU, fp32 master params with an
-optional bf16 compute dtype.
+implementation is idiomatic JAX: NHWC layout, HWIO conv weights that
+XLA hands to cuDNN or its own conv emitters as they are, fp32 master
+params with an optional bf16 compute dtype.
 """
 
 from __future__ import annotations
@@ -64,6 +64,14 @@ class Conv:
 
     MSR (fan-out) init: std = sqrt(2 / (k*k*c_out)), zero bias — matching
     the reference's MSRinit (`models/cifar/nmg.lua:197-210`).
+
+    Precision policy: no conv or matmul in this library sets a
+    precision. Float32 compute (``dtype=None``, the `-dtype float32`
+    default) runs at XLA's default precision, which on Ampere and later
+    NVIDIA GPUs is TF32 (about three decimal digits in the products,
+    float32 accumulation). bf16 compute (``dtype=jnp.bfloat16``) runs
+    bf16 operands as it always has. A float32 reference that must be
+    exact wraps its call in ``jax.default_matmul_precision("highest")``.
     """
 
     c_in: int
@@ -100,26 +108,15 @@ class Conv:
         return p, {}
 
     def apply(self, p, s, x, *, train=False, rng=None):
-        from mgtpu.ops.quant import conv_i8, is_quantized, quantize_act, record_scale
-
-        if is_quantized(p["w"]):  # int8 serving path (ops/quant.py)
-            sx_cal = p["w"].get("sx")  # calibrated static scale (slot 0)
-            x8, sx = quantize_act(x, None if sx_cal is None else sx_cal[0])
-            if sx_cal is None:
-                record_scale(p["w"], 0, sx)
-            acc = conv_i8(x8, p["w"]["w8"], self.stride, self.pad)
-            y = (acc.astype(jnp.float32) * (sx * p["w"]["scale"]))
-            y = cast_to(y, self.dtype)
-        else:
-            w = cast_to(p["w"], self.dtype)
-            x = cast_to(x, self.dtype)
-            y = jax.lax.conv_general_dilated(
-                x,
-                w,
-                window_strides=(self.stride, self.stride),
-                padding=[(self.pad, self.pad), (self.pad, self.pad)],
-                dimension_numbers=("NHWC", "HWIO", "NHWC"),
-            )
+        w = cast_to(p["w"], self.dtype)
+        x = cast_to(x, self.dtype)
+        y = jax.lax.conv_general_dilated(
+            x,
+            w,
+            window_strides=(self.stride, self.stride),
+            padding=[(self.pad, self.pad), (self.pad, self.pad)],
+            dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        )
         if self.bias:
             y = y + cast_to(p["b"], y.dtype)
         return y, s
@@ -147,17 +144,7 @@ class ConvTranspose:
         return {"w": w, "b": b}, {}
 
     def apply(self, p, s, x, *, train=False, rng=None):
-        from mgtpu.ops.quant import is_quantized
-
-        w = p["w"]
-        if is_quantized(w):
-            # -int8 safety net: the transposed lowering is not
-            # int8-profitable, so quantize_params skips the zoo's 2x2
-            # upsamplers by kernel shape — a quantized kernel that
-            # still lands here (a plugin net's k!=2 ConvTranspose)
-            # dequantizes instead of crashing at trace time
-            w = w["w8"].astype(jnp.float32) * w["scale"]
-        w = cast_to(w, self.dtype)
+        w = cast_to(p["w"], self.dtype)
         x = cast_to(x, self.dtype)
         y = jax.lax.conv_transpose(
             x,
@@ -433,18 +420,9 @@ class ConvBN:
         at fine resolution."""
         rng = _as_rngs(rng)
         from mgtpu.ops.mg import materialize_part  # cycle-free at call time
-        from mgtpu.ops.quant import (
-            conv_i8,
-            is_quantized,
-            quantize_act,
-            record_scale,
-        )
         from mgtpu.ops.resample import upsample_nearest2
 
         w = p["conv"]["w"]
-        quant = is_quantized(w)
-        c_in_total = w["w8"].shape[2] if quant else w.shape[2]
-        sx_cal = w.get("sx") if quant else None  # calibrated static scales
         drop_live = self.drop is not None and self.dropout_pos == "before" and train
         oh = ow = None
         for kind, xp in parts:
@@ -452,32 +430,8 @@ class ConvBN:
                 oh, ow = xp.shape[1], xp.shape[2]
         y = None
         ofs = 0
-        for slot, (kind, xp) in enumerate(parts):
+        for kind, xp in parts:
             c = xp.shape[-1]
-            if quant:
-                # int8 serving: slice the quantized kernel on its input
-                # channels (conv(concat(xs), W) = sum_i conv(x_i, W_i)
-                # holds for the int32 accumulators too; the per-co scale
-                # is shared by construction). The up-fold is skipped —
-                # a derived _conv_up3 kernel would need requantizing —
-                # but the up part is quantized at COARSE resolution and
-                # nearest-upsampled as int8 (exact: nearest only
-                # duplicates values), so the materialized tensor costs
-                # int8 bytes, not bf16.
-                ws8 = w["w8"][:, :, ofs : ofs + c, :]
-                ofs += c
-                x8, sx = quantize_act(
-                    xp, None if sx_cal is None else sx_cal[slot]
-                )
-                if sx_cal is None:
-                    record_scale(w, slot, sx)
-                if kind == "up":
-                    x8 = materialize_part(kind, x8, oh, ow)
-                acc = conv_i8(x8, ws8, self.conv.stride, self.conv.pad)
-                yy = cast_to(acc.astype(jnp.float32) * (sx * w["scale"]),
-                             self.dtype)
-                y = yy if y is None else y + yy
-                continue
             ws = cast_to(w[:, :, ofs : ofs + c, :], self.dtype)
             ofs += c
             if kind == "up" and drop_live:
@@ -508,7 +462,7 @@ class ConvBN:
                     dimension_numbers=("NHWC", "HWIO", "NHWC"),
                 )
             y = yy if y is None else y + yy
-        assert ofs == c_in_total, (ofs, c_in_total)
+        assert ofs == w.shape[2], (ofs, w.shape[2])
         if self.conv.bias:
             y = y + cast_to(p["conv"]["b"], y.dtype)
         y, sb = self.bn.apply(p["bn"], s["bn"], y, train=train)

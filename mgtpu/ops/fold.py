@@ -9,10 +9,9 @@ mode, `/root/reference/models/cifar/nmg.lua:23`):
     with a = gamma / sqrt(var + eps)        (per output channel)
 
 so every BN normalize pass disappears from the inference graph — one
-fewer full read+write of each conv's output tensor, which on TPU is
-pure HBM-bandwidth win (the convs are MXU-bound, the BN passes are
-memory-bound). ReLU stays where it was; XLA fuses it into the conv
-epilogue either way.
+fewer full read+write of each conv's output tensor unless the compiler
+already fuses the affine into the conv epilogue. ReLU stays where it
+was.
 
 The fold is a pure (params, stats) -> (params, stats) transform: folded
 conv weights absorb `a`, and the BN's params/stats nodes become EMPTY
@@ -20,12 +19,6 @@ dicts — a static pytree-structure marker that `nn.BatchNorm.apply`
 recognizes and skips (and refuses under train=True). Layers the walker
 does not recognize are left untouched, which stays numerically correct:
 their BNs keep their stats and still normalize at runtime.
-
-int8-quantized convs (ops/quant.py) fold exactly: the per-output-channel
-dequant "scale" vector absorbs `a` while the int8 weights are untouched,
-so fold-then-quantize and quantize-then-fold agree bit-for-bit on the
-int8 kernel. Activation scales ("sx") describe conv INPUTS and are
-unaffected.
 
 Usage: `fold_batchnorm(model, params, stats)`; wired into
 tools/export_model.py (default on) and the serving benches.
@@ -37,7 +30,6 @@ import jax
 import jax.numpy as jnp
 
 from mgtpu.nn import BatchNorm, ConvBN, Sequential, UpConvBN
-from mgtpu.ops.quant import is_quantized
 
 
 def _fold_convbn(layer, p, s):
@@ -61,11 +53,7 @@ def _fold_convbn(layer, p, s):
         )
     a = bn_p["scale"] * jax.lax.rsqrt(bn_s["var"] + layer.bn.eps)
     w = p["conv"]["w"]
-    if is_quantized(w):
-        new_w = dict(w)
-        new_w["scale"] = (w["scale"] * a).astype(w["scale"].dtype)
-    else:
-        new_w = (w * a).astype(w.dtype)
+    new_w = (w * a).astype(w.dtype)
     b = p["conv"]["b"]
     new_b = (bn_p["bias"] + (b - bn_s["mean"]) * a).astype(b.dtype)
     new_conv = dict(p["conv"])

@@ -1,6 +1,6 @@
 """Spatial resampling primitives on NHWC arrays.
 
-TPU-native equivalents of the Torch pooling/upsampling modules the
+JAX equivalents of the Torch pooling/upsampling modules the
 reference composes for cross-scale exchange:
   - `nn.SpatialMaxPooling(2,2,2,2):ceil()`  -> maxpool2_ceil
   - `cudnn.SpatialAveragePooling(r,r,r,r)`  -> avgpool
@@ -28,14 +28,10 @@ def _ceil_pad(size: int, k: int, s: int) -> int:
 def maxpool2_ceil(x: jax.Array) -> jax.Array:
     """2x2/2 max pool with ceil semantics (pads right/bottom with -inf).
 
-    reduce_window is the measured winner on TPU v5e in BOTH directions
-    (128x56x56x64 bf16: 220us fwd, 278us fwd + SelectAndScatter bwd).
-    Rejected variants, measured: strided-phase slicing lowers to
-    gathers on the tiled layout (1.8ms fwd); a custom mask VJP
-    (dx = (x == up2(y)) * up2(g)) costs 570us fwd+bwd — the nearest-
-    upsample broadcasts are pricier than SelectAndScatter itself; a
-    Pallas row-pair kernel ran 1.1ms fwd (grid overhead + sublane
-    reshapes, see ops/pallas_pool.py)."""
+    reduce_window forward, select_and_scatter backward: both are plain
+    XLA ops that the GPU backend fuses and schedules itself. Other
+    formulations (strided-phase slicing, a mask-based custom VJP) are
+    unmeasured on the GPU."""
     ph = _ceil_pad(x.shape[1], 2, 2)
     pw = _ceil_pad(x.shape[2], 2, 2)
     return jax.lax.reduce_window(

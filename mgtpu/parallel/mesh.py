@@ -1,14 +1,15 @@
 """Device-mesh data parallelism.
 
-The TPU-native replacement for the reference's multi-GPU layer
+The JAX replacement for the reference's multi-GPU layer
 (`/root/reference/multigpu.lua`): where Torch needed
 nn.DataParallelTable + NCCL + explicit syncParameters
 (`multigpu.lua:81-103`, `pipelines/standard/train.lua:165-169`), here a
 `jax.sharding.Mesh` with the batch dim sharded over the 'data' axis and
-params replicated makes XLA insert the gradient all-reduce over ICI
-automatically — scatter, reduce, and broadcast all disappear into the
-compiler. The mesh carries a 'model' axis (size 1 today) so tensor /
-spatial sharding can be added without re-plumbing."""
+params replicated makes XLA insert the gradient all-reduce (NCCL on
+GPUs) automatically — scatter, reduce, and broadcast all disappear into
+the compiler. The mesh carries a second axis (size 1 unless -spatial or
+-tensor) for spatial / channel sharding. The cards of one host are
+joined all to all, so the mesh is a plain reshape of the device list."""
 
 from __future__ import annotations
 
@@ -23,19 +24,23 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def init_multihost() -> None:
     """Multi-host bootstrap (-multihost): join the jax.distributed
     coordination service so jax.devices() becomes the GLOBAL device set
-    of a multi-host slice (DCN; SURVEY §2.6's 'ICI/DCN' column — the
-    reference was single-host, `multigpu.lua:85`). Endpoint comes from
-    MGTPU_COORDINATOR / MGTPU_NUM_PROCESSES / MGTPU_PROCESS_ID, falling
-    back to jax's own auto-detection (TPU pod metadata)."""
-    coord = os.environ.get("MGTPU_COORDINATOR")
-    if coord:
-        jax.distributed.initialize(
-            coordinator_address=coord,
-            num_processes=int(os.environ["MGTPU_NUM_PROCESSES"]),
-            process_id=int(os.environ["MGTPU_PROCESS_ID"]),
+    across processes (the reference was single-host,
+    `multigpu.lua:85`). The endpoint comes from MGTPU_COORDINATOR
+    (host:port) / MGTPU_NUM_PROCESSES / MGTPU_PROCESS_ID; there is no
+    cluster auto-detection to fall back on."""
+    missing = [k for k in ("MGTPU_COORDINATOR", "MGTPU_NUM_PROCESSES",
+                           "MGTPU_PROCESS_ID") if not os.environ.get(k)]
+    if missing:
+        raise SystemExit(
+            f"-multihost needs {', '.join(missing)}: set MGTPU_COORDINATOR "
+            "to host:port of process 0, MGTPU_NUM_PROCESSES and "
+            "MGTPU_PROCESS_ID on every process"
         )
-    else:
-        jax.distributed.initialize()
+    jax.distributed.initialize(
+        coordinator_address=os.environ["MGTPU_COORDINATOR"],
+        num_processes=int(os.environ["MGTPU_NUM_PROCESSES"]),
+        process_id=int(os.environ["MGTPU_PROCESS_ID"]),
+    )
     print(
         f"==> multihost: process {jax.process_index()}/{jax.process_count()}, "
         f"{jax.local_device_count()} local / {jax.device_count()} global devices"
@@ -55,7 +60,7 @@ def fetch_global(x) -> np.ndarray:
 
     Single-process: plain np.asarray. Multi-process: a global array's
     shards live on other hosts, so np.asarray would raise
-    (non-addressable); all-gather the batch shards over DCN first —
+    (non-addressable); all-gather the batch shards across processes first —
     every process gets the full value, keeping the eval loop SPMD (all
     processes take the same branches on the result)."""
     if jax.process_count() > 1:
@@ -68,7 +73,7 @@ def fetch_global(x) -> np.ndarray:
 def gather_tree(tree):
     """Collective, D2H-safe view of a pytree for checkpointing. Leaves
     whose shards span OTHER processes — tensor-sharded params/momentum
-    under `-multihost -tensor` — are all-gathered over DCN to full
+    under `-multihost -tensor` — are all-gathered across processes to full
     numpy values; fully-addressable or fully-replicated leaves pass
     through untouched (zero cost single-host). EVERY process must call
     this at the same program point (the gather is a collective); only
@@ -230,7 +235,7 @@ def shard_opt_zero1(mesh: Mesh, tree):
     momentum leaf sharded over 'data' (optimizer memory scales 1/nGPU —
     the ZeRO stage-1 contract), the rest replicated. The reference has
     no analog (optim.sgd keeps full momentum per GPU inside one host,
-    `pipelines/standard/train.lua:49-55`); this is the TPU-native
+    `pipelines/standard/train.lua:49-55`); this is the
     scaling feature the 'data' axis gives for free: XLA turns the
     gradient all-reduce into reduce-scatter(+local update)+all-gather
     where profitable, and the sharded layout is re-asserted inside the

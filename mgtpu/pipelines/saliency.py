@@ -3,7 +3,7 @@
 For each test sample the loader expands 1 image into a 1+841 stack of
 occluded variants (`dataset/mnist-saliency`); the whole stack forwards
 in one batched jit call (the reference chunked into 8 to bound GPU
-memory, `saliency/test.lua:132-138` — on TPU the 842-stack is a single
+memory, `saliency/test.lua:132-138`; here the 842-stack is a single
 vectorized forward). `interest_point` picks 7 probe regions (center + 6
 bounding-box-edge points, `:51-117`); the saliency map accumulates
 mask_i * max(|out_i - out_orig| * point_j) * 1(impact >= 0.1)
@@ -139,7 +139,13 @@ def _saliency_map_jnp(outputs, points, mask, threshold: float = 0.1):
 def run(sess) -> None:
     import time
 
-    import h5py
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "the saliency pipeline writes testOutput.h5, which needs h5py "
+            "(not installed)"
+        ) from e
 
     opt = sess.opt
     loader = sess.loaders["test"]

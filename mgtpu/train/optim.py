@@ -22,8 +22,10 @@ import numpy as np
 # one fused kernel (multi-tensor apply). R-MG-34's tree is 302 leaves
 # but only ~40 are real conv kernels; the rest are small BN/bias
 # vectors whose per-fusion launch overhead dominates their bandwidth.
-# Measured on v5e (tools/bench_sgd.py): 2^13 wins 11% over per-leaf;
-# larger buckets LOSE (XLA materializes the multi-MB concats).
+# The threshold was tuned on the accelerator the project was first built
+# for, where larger buckets lost (XLA materialized the multi-MB
+# concats); it is not yet measured on the GPU (tools/bench_sgd.py races
+# the candidates).
 _BUCKET_THRESHOLD = 1 << 13
 
 

@@ -5,7 +5,7 @@ The rebuild of the reference's hot loop (`pipelines/standard/train.lua:
 accumulation over `-iterSize` micro-batches (criterion pre-scaled
 1/iterSize, `model.lua:38-44` — here a lax.scan computing the mean
 gradient), then one SGD update. Under a data-parallel mesh the batch dim
-is sharded and XLA all-reduces gradients over ICI; there is no
+is sharded and XLA all-reduces gradients (NCCL on GPUs); there is no
 syncParameters step (params stay replicated).
 
 BN running stats thread through micro-batches sequentially, matching
@@ -40,7 +40,7 @@ def make_train_step(model, loss_fn, net, iter_size: int = 1, momentum: float = 0
     the step. On a BN (scale-invariant) network the effective LR is
     ~ lr/||w||^2, so a steadily decaying pnorm with a flat lr predicts
     an effective-LR blowup — the instrumentation for the LR-0.1 loss
-    spikes observed in runs/disjoint_rmg12.
+    spikes seen in long constant-LR runs (PARITY.md).
     """
     from mgtpu.train.optim import sgd_update
 

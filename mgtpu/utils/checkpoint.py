@@ -105,7 +105,7 @@ def pending_save_failed() -> bool:
     """Join any in-flight async write and report (without clearing or
     raising) whether it failed. Lets the -multihost save path broadcast
     the failure so ALL processes abort together instead of the peers
-    hanging in the next collective until the DCN timeout."""
+    hanging in the next collective until the distributed timeout."""
     global _pending_save
     if _pending_save is not None:
         _pending_save.join()

@@ -21,9 +21,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-data", default="/path/to/dataset/folder", help="dataset folder, or 'synthetic'")
     # ------------- Data options ------------------------
     p.add_argument("-manualSeed", type=int, default=2)
-    p.add_argument("-GPU", type=int, default=1, help="kept for CLI parity (unused on TPU)")
+    p.add_argument("-GPU", type=int, default=1, help="kept for CLI parity (unused: devices come from -nGPU)")
     p.add_argument("-nGPU", type=int, default=1,
-                   help="number of devices in the data-parallel mesh (0 = all)")
+                   help="number of devices in the data-parallel mesh (0 = "
+                        "all; more than are present is an error)")
     p.add_argument("-nDonkeys", type=int, default=2, help="data loading threads (0 = sync)")
     p.add_argument("-imageSize", type=int, default=256)
     p.add_argument("-imageCrop", type=int, default=224)
@@ -66,9 +67,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "device->host. 0: compute probe points + "
                         "saliency on device, dump only "
                         "{points,saliency,input} (~100 KB/sample)")
-    # ------------- TPU-native additions ----------------
+    # ------------- JAX-rebuild additions ---------------
     p.add_argument("-dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="compute dtype for conv/matmul")
+                   help="compute dtype for conv/matmul. float32 runs at "
+                        "XLA's default matmul precision (TF32 on Ampere "
+                        "and later GPUs, see mgtpu/nn.py Conv)")
     p.add_argument("-hostCast", type=int, default=1, choices=[0, 1],
                    help="1 (default): cast input batches to the compute "
                         "dtype on the host before device transfer — "
@@ -89,18 +92,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-remat", action="store_true",
                    help="rematerialize activations in the backward pass "
                         "(jax.checkpoint): slower, fits larger batches")
-    p.add_argument("-int8", action="store_true",
-                   help="post-training int8 quantization of conv kernels "
-                        "for inference (-test/-eval only): weights "
-                        "per-channel static, activations per-tensor "
-                        "dynamic, int32 MXU accumulation (ops/quant.py). "
-                        "Incompatible with -train")
-    p.add_argument("-int8Calib", type=int, default=0,
-                   help="with -int8: calibrate STATIC activation scales "
-                        "over this many train batches (absmax), so the "
-                        "quantize fuses into each producer instead of "
-                        "paying a per-conv dynamic absmax reduction — "
-                        "the fast serving path. 0 = dynamic scales")
     p.add_argument("-donkeyMode", default="thread", choices=["thread", "process"],
                    help="donkey pool concurrency: threads share loaders "
                         "under the GIL; processes rebuild loaders per "
@@ -142,14 +133,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-stopAfter", type=int, default=0,
                    help="exit cleanly after this epoch without changing "
                         "-nEpochs (which the LR schedules read): bounded "
-                        "partial runs, chained by tools/soak_chain.py "
-                        "through -retrain/-epochNumber resume")
+                        "partial runs, continued by -retrain/-epochNumber "
+                        "resume")
     p.add_argument("-multihost", action="store_true",
-                   help="join a multi-host slice via jax.distributed "
-                        "(DCN): set MGTPU_COORDINATOR host:port, "
+                   help="join a multi-host job via jax.distributed: "
+                        "set MGTPU_COORDINATOR host:port, "
                         "MGTPU_NUM_PROCESSES and MGTPU_PROCESS_ID on "
-                        "every host (or rely on TPU pod auto-detect); "
-                        "the mesh then spans all hosts' chips")
+                        "every host; the mesh then spans all hosts' "
+                        "devices")
     p.add_argument("-split", type=int, default=0,
                    help="ilsvrc: split a single directory-per-class tree "
                         "N%%/(100-N)%% into train/test (0 = expect "

@@ -4,7 +4,7 @@ The reference ecosystem's canonical artifacts are torch.save blobs:
 the pre-whitened CIFAR bundle (`dataset/cifar100-whitened/dataset.lua:44`),
 the generated MNIST task sets (`utils/mnist-cluttered/segmentation.lua:70`),
 and trained model checkpoints (`multigpu.lua:105`). This module lets the
-TPU rebuild ingest any of them directly (tools/read_t7.py,
+JAX rebuild ingest any of them directly (tools/read_t7.py,
 tools/ingest_cifar.py --t7) and export fixtures for round-trip tests.
 
 Format (torch7 File.lua writeObject + THDiskFile.c, re-implemented from

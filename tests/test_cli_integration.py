@@ -169,8 +169,7 @@ def test_stop_after_bounded_chunk_resumes(tmp_path):
     """-stopAfter: exit cleanly after the given epoch with a checkpoint
     even off the -nEpochsSave cadence, WITHOUT changing -nEpochs (the
     LR schedule input); a resume from that checkpoint continues the
-    epoch numbering. This is the chunk primitive tools/soak_chain.py
-    chains to bound per-process RSS on leaky relay hosts."""
+    epoch numbering, so a long run can be split into bounded chunks."""
     common = [
         "-netType", "cifar/nmg", "-dataset", "cifar100-whitened",
         "-data", "synthetic", "-synthSize", "48", "-batchSize", "8",

@@ -217,11 +217,12 @@ def test_bn_custom_vjp_matches_naive_autodiff(monkeypatch):
 
 def test_bce_loss_saturated_sigmoid_finite():
     """bce_loss must stay finite (value AND grad) for saturated and
-    even slightly-out-of-range sigmoid outputs. Two on-chip failure
-    modes are pinned (see bce_loss docstring; both bit prnmg.mnist.sh
-    step 1 on the v5e): (a) clip(p, eps, 1-eps) no-ops at the top in
-    f32 (1 - 1e-12 == 1.0) -> log(0); (b) XLA:TPU's fused logistic+log
-    chain can push 1 - sigmoid(z) NEGATIVE under jit -> log(neg) = NaN,
+    even slightly-out-of-range sigmoid outputs. Two failure modes are
+    pinned (see bce_loss docstring; both once bit prnmg.mnist.sh step 1
+    on the accelerator the project was first built for): (a) clip(p,
+    eps, 1-eps) no-ops at the top in f32 (1 - 1e-12 == 1.0) -> log(0);
+    (b) a fused logistic+log chain can push 1 - sigmoid(z) NEGATIVE
+    under jit -> log(neg) = NaN,
     and 0 * NaN = NaN so the zero target doesn't mask it. The
     maximum(., eps) guard survives both."""
     from mgtpu.models.base import bce_loss

@@ -1,5 +1,5 @@
 """Multi-host (-multihost) CLI path: two coordinated CPU processes run
-the FULL training CLI over one global mesh (the DCN extension of
+the FULL training CLI over one global mesh (the multi-process extension of
 SURVEY §2.6 — the reference stopped at single-host,
 `multigpu.lua:85`). Pins:
   - identical train/test metrics on every process (SPMD consistency),

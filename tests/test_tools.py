@@ -254,3 +254,64 @@ def test_render_predictions_panels(tmp_path):
          "--out", str(tmp_path / "sub" / "exact.png"), "--ids", "0")
     exact = np.asarray(Image.open(tmp_path / "sub" / "exact.png"))
     assert exact.shape == seg.shape and not (tmp_path / "sub" / "exact.png").is_dir()
+
+
+@pytest.mark.parametrize("kind,known", [
+    ("NVIDIA H100 80GB HBM3", True),
+    ("cpu", False),
+    ("NVIDIA A100-SXM4-80GB", False),
+    ("NVIDIA H100", False),  # exact kind only, no prefix match
+])
+def test_bench_peak_lookup(kind, known):
+    """bench.py's peaks are keyed by exact device_kind; any other device,
+    the CPU included, is an error rather than a borrowed peak."""
+    import bench
+
+    if known:
+        peaks = bench.device_peaks(kind)
+        assert peaks["bf16_flops"] == 989e12 and peaks["hbm_bytes_per_s"] == 3.35e12
+    else:
+        with pytest.raises(SystemExit, match="no peak rates"):
+            bench.device_peaks(kind)
+
+
+def _trace(procs, events):
+    meta = [{"ph": "M", "name": "process_name", "pid": pid, "args": {"name": n}}
+            for pid, n in procs.items()]
+    meta += [{"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+              "args": {"name": n}} for (pid, tid), n in THREADS.items()]
+    return {"traceEvents": meta + events}
+
+
+THREADS = {(1, 1): "python", (2, 10): "XLA Modules", (2, 11): "Stream #13(Compute)"}
+
+
+@pytest.mark.parametrize("procs,events", [
+    ({}, []),
+    ({1: "/host:CPU"}, [{"ph": "X", "pid": 1, "tid": 1, "name": "jit_step", "dur": 5.0}]),
+    # a device whose only events are summary rows
+    ({2: "/device:GPU:0"}, [{"ph": "X", "pid": 2, "tid": 10, "name": "jit_step", "dur": 9.0}]),
+])
+def test_profile_summary_refuses_trace_without_device_events(procs, events):
+    sys.path.insert(0, TOOLS)
+    from profile_summary import summarize
+
+    with pytest.raises(ValueError, match="no device events"):
+        summarize(_trace(procs, events))
+
+
+def test_profile_summary_sums_gpu_kernels():
+    sys.path.insert(0, TOOLS)
+    from profile_summary import summarize
+
+    ev = lambda tid, name, dur: {"ph": "X", "pid": 2, "tid": tid, "name": name, "dur": dur}
+    trace = _trace({1: "/host:CPU", 2: "/device:GPU:0"}, [
+        ev(10, "jit_train_step", 100.0),  # module row: not counted
+        ev(11, "cudnn_conv_fwd", 30.0), ev(11, "cudnn_conv_fwd", 20.0),
+        ev(11, "loop_fusion", 7.0),
+        {"ph": "X", "pid": 1, "tid": 1, "name": "dispatch", "dur": 50.0},
+    ])
+    total, by_cat, by_op = summarize(trace)
+    assert total == 57.0
+    assert by_op == {"cudnn_conv_fwd": 50.0, "loop_fusion": 7.0}
+    assert by_cat == by_op  # GPU kernel events carry no hlo_category

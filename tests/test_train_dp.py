@@ -45,8 +45,7 @@ def test_sgd_scale_invariant_norm_decay_envelope():
     """With zero gradient (memorized training set), coupled L2 +
     momentum shrink each weight by the lr*wd/(1-mu) envelope per step
     at equilibrium — the quantitative basis of the LR-0.1 spike
-    root-cause analysis (runs/spike_rootcause, PARITY 'constant-LR
-    instability'): a BN-preceded weight's effective LR grows as
+    root-cause analysis (PARITY 'constant-LR instability'): a BN-preceded weight's effective LR grows as
     lr/||w||^2 while ||w|| decays along exactly this envelope."""
     lr, wd, mu = 0.1, 5e-4, 0.9
     p = {"w": jnp.array([100.0])}

@@ -112,7 +112,7 @@ def test_registry_complete():
 
 TRAIN_CASES = [
     # models not already train-stepped elsewhere (nmg: convergence/DP
-    # tests; rnmg: dryrun + TPU runs)
+    # tests; rnmg: dryrun + chip_smoke.py)
     ("cifar/pnmg", {**CIFAR_OPT, "isDropout": True}, (4, 32, 32, 3), 100),
     ("cifar/prnmg", {**CIFAR_OPT, "isDropout": True}, (4, 32, 32, 3), 100),
     ("cifar/resnet", CIFAR_OPT, (4, 32, 32, 3), 100),

@@ -3,7 +3,7 @@ artifact (jax.export) for serving without any mgtpu/Python model code.
 
 The artifact closes over the checkpoint weights as constants, so the
 serving side needs only `jax.export.deserialize(bytes).call(images)`
-— on TPU, CPU, or GPU. This is the TPU-native answer to the
+— on GPU or CPU. This is the JAX answer to the
 reference's whole-model torch.save blobs (`multigpu.lua:105`,
 relied on by the saliency pipeline): one self-contained file that
 reproduces the forward pass, with the architecture compiled in instead
@@ -47,24 +47,13 @@ def main():
     ap.add_argument("-out", required=True)
     ap.add_argument("-allow-pickle", dest="allow_pickle", action="store_true",
                     help="permit legacy pickle checkpoints (trusted files only)")
-    ap.add_argument("-int8", dest="int8", action="store_true",
-                    help="post-training-quantize conv kernels before export "
-                         "(mgtpu/ops/quant.py): ~4x smaller conv constants "
-                         "in the artifact, int8 MXU rate at serve time")
-    ap.add_argument("-calib", default=None,
-                    help="with -int8: .npy of NHWC calibration images — "
-                         "freezes STATIC activation scales into the "
-                         "artifact. RECOMMENDED: calibrated-static "
-                         "measured 1.01x bf16 on v5e; dynamic scales "
-                         "(no -calib) measured 0.88x — slower than not "
-                         "quantizing at all")
     ap.add_argument("-no-fold-bn", dest="fold_bn", action="store_false",
                     help="keep eval-mode BatchNorm as runtime normalize "
                          "passes instead of folding it into the conv "
                          "weights (mgtpu/ops/fold.py; folding is exact "
                          "and default-on for this inference-only export)")
     ap.add_argument("-platforms", nargs="*", default=None,
-                    help="lowering platforms, e.g. -platforms tpu cpu "
+                    help="lowering platforms, e.g. -platforms cuda cpu "
                          "(default: the current backend)")
     args = ap.parse_args()
 
@@ -87,23 +76,10 @@ def main():
         # Exported artifacts are inference-only by construction, so the
         # eval-mode BN folds into the conv weights for free (one fewer
         # read+write of every conv output; exactness pinned in
-        # tests/test_fold_bn.py). Before quantization: int8 per-channel
-        # absmax is scale-covariant, so the fold order does not change
-        # the quantized forward.
+        # tests/test_fold_bn.py).
         from mgtpu.ops.fold import fold_batchnorm
 
         params, stats = fold_batchnorm(model, params, stats)
-    if args.int8:
-        from mgtpu.ops.quant import calibrate, quantize_params
-
-        params = jax.jit(quantize_params)(params)
-        if args.calib:
-            import numpy as np
-
-            cal = np.load(args.calib)
-            if cal.ndim != 4:
-                raise SystemExit(f"-calib expects NHWC images, got {cal.shape}")
-            params = calibrate(model, params, stats, [cal])
 
     @jax.jit
     def fwd(x):
@@ -117,7 +93,7 @@ def main():
     data = exp.serialize()
     with open(args.out, "wb") as f:
         f.write(data)
-    kind = f"{args.dtype}+int8" if args.int8 else args.dtype
+    kind = args.dtype
     if args.fold_bn:
         kind += "+foldBN"
     print(f"exported {args.netType} fwd (batch {args.batch}, {kind}) "

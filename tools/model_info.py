@@ -8,9 +8,9 @@ numbers reflect what the code constructs, not a hand count.
 
 Set MGTPU_NO_FUSED_EXCHANGE=1 to count the reference formulation
 (materialized resample-concat, dense 9-tap up-convs); the default
-counts the TPU formulation, where the dilated up-conv fold makes the
-MAC count look ~1.8x larger than the work the TPU actually does
-(lhs-dilated convs skip the zero phases).
+counts the fused formulation, where the dilated up-conv fold makes the
+MAC count look ~1.8x larger than the useful work (lhs-dilated convs
+multiply by the inserted zeros unless the backend skips them).
 
 Usage:
   python tools/model_info.py -netType cifar/nmg -nLayer 1 [-imageCrop 32]
@@ -90,7 +90,7 @@ def model_info(net_type: str, crop: int, **model_opts):
         "params": param_count(params),
         "macs_per_image": count_macs(jaxpr.jaxpr),
         "formulation": "reference" if os.environ.get("MGTPU_NO_FUSED_EXCHANGE")
-        else "tpu",
+        else "fused",
     }
 
 

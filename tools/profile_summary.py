@@ -1,10 +1,11 @@
-"""Aggregate a jax-profiler trace by HLO category.
+"""Aggregate the device events of a jax-profiler trace.
 
 Companion to `-profile DIR` (mgtpu/pipelines/standard.py — the
-tracing subsystem, SURVEY §5): summarizes device-side op time from the
-captured trace so statements like "conv fusions 22.9 ms / BN backward
-reductions 7.0 ms per step" (PARITY.md §"Training-throughput ceiling")
-are reproducible from artifacts instead of session notes.
+tracing subsystem, SURVEY §5): sums device-side op time from the
+captured trace, grouped by the event's ``hlo_category`` where the trace
+carries one and by the op name otherwise (GPU kernel events carry
+none), so per-step op times are reproducible from artifacts. A trace
+with no device events is an error, never an empty table.
 
 Usage:
   python tools/profile_summary.py <profile_dir> [--top N] [--steps K]
@@ -38,22 +39,53 @@ def find_trace(profile_dir: str) -> str:
     raise FileNotFoundError(f"no *.trace.json.gz under {profile_dir}")
 
 
+# Device-track threads that summarize other rows (whole modules, steps,
+# name scopes): counting them would double-count the ops beneath.
+_SUMMARY_THREADS = ("XLA Modules", "Steps", "TensorFlow Name Scope",
+                    "Framework Name Scope", "Source code")
+
+
 def device_events(trace: dict):
-    """Yield complete events from device-side tracks (TensorFlow Name
-    Scope / XLA Ops live under pids whose process name contains 'TPU'
-    or 'Device'); host python threads are excluded."""
-    names = {}
+    """Complete op events from device tracks: processes named
+    ``/device:<KIND>:<n>`` (a GPU's streams live under
+    ``/device:GPU:0``); host threads (``/host:CPU``) and summary rows are
+    excluded. Where XLA op events carry ``hlo_category``, only those are
+    kept, so kernels are not counted twice beside their ops."""
+    pnames, tnames = {}, {}
     for ev in trace.get("traceEvents", []):
-        if ev.get("ph") == "M" and ev.get("name") == "process_name":
-            names[ev["pid"]] = ev.get("args", {}).get("name", "")
-    dev_pids = {
-        pid
-        for pid, name in names.items()
-        if any(k in name for k in ("TPU", "Device", "/device:"))
-    }
-    for ev in trace.get("traceEvents", []):
-        if ev.get("ph") == "X" and ev.get("pid") in dev_pids:
-            yield ev
+        if ev.get("ph") != "M":
+            continue
+        name = ev.get("args", {}).get("name", "")
+        if ev.get("name") == "process_name":
+            pnames[ev["pid"]] = name
+        elif ev.get("name") == "thread_name":
+            tnames[(ev["pid"], ev.get("tid"))] = name
+    dev_pids = {pid for pid, name in pnames.items() if name.startswith("/device:")}
+    events = [
+        ev for ev in trace.get("traceEvents", [])
+        if ev.get("ph") == "X" and ev.get("pid") in dev_pids
+        and not tnames.get((ev["pid"], ev.get("tid")), "").startswith(_SUMMARY_THREADS)
+    ]
+    ops = [ev for ev in events if "hlo_category" in (ev.get("args") or {})]
+    return ops or events
+
+
+def summarize(trace: dict):
+    """(total device microseconds, {category: us}, {op name: us}).
+    Raises ValueError when the trace holds no device events."""
+    events = device_events(trace)
+    if not events:
+        raise ValueError(
+            "no device events in this trace (no /device:* process with "
+            "complete op events): was it captured on an accelerator?")
+    by_cat = collections.Counter()
+    by_op = collections.Counter()
+    for ev in events:
+        dur = float(ev.get("dur", 0.0))  # microseconds
+        name = ev.get("name", "?")
+        by_cat[(ev.get("args") or {}).get("hlo_category", name)] += dur
+        by_op[name] += dur
+    return sum(by_op.values()), by_cat, by_op
 
 
 def main():
@@ -68,18 +100,7 @@ def main():
     with gzip.open(path, "rt") as f:
         trace = json.load(f)
 
-    by_cat = collections.Counter()
-    by_op = collections.Counter()
-    total = 0.0
-    for ev in device_events(trace):
-        # XLA Ops rows carry hlo_category; name-scope rows double-count
-        cat = (ev.get("args") or {}).get("hlo_category")
-        if cat is None:
-            continue
-        dur = float(ev.get("dur", 0.0))  # microseconds
-        by_cat[cat] += dur
-        by_op[ev.get("name", "?")] += dur
-        total += dur
+    total, by_cat, by_op = summarize(trace)
 
     div = args.steps if args.steps else 1
     unit = "ms/step" if args.steps else "ms total"

@@ -4,11 +4,6 @@ minimal serving side, with no mgtpu model code on the path.
 Usage:
   python tools/serve_exported.py model.shlo images.npy [--out preds.npy]
   python tools/serve_exported.py model.shlo --random  # smoke
-
-For the fastest artifact, export with BN folding (the default) and, if
-quantizing, calibrated-static scales: `-int8 -calib images.npy`
-(measured 1.01x bf16 on v5e; dynamic-scale int8 measured 0.88x —
-slower than serving bf16).
 """
 
 from __future__ import annotations
